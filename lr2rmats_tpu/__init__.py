@@ -1,11 +1,11 @@
-"""lr2rmats_tpu — a TPU-native long-read transcript-discovery engine.
+"""lr2rmats_tpu — an accelerator-native long-read transcript-discovery engine.
 
 A from-scratch reimplementation of the capabilities of Xinglab/lr2rmats
-(reference: /root/reference) designed TPU-first:
+(the reference C/Snakemake pipeline) designed for an accelerator:
 
   * long-read spliced alignment  (replaces minimap2):  minimizer seeding +
     colinear chaining + splice-aware extension, batched in JAX with the DP
-    inner loops mapped onto the TPU (see `lr2rmats_tpu.align`).
+    inner loops mapped onto the GPU (see `lr2rmats_tpu.align`).
   * short-read junction support  (replaces the STAR `SJ.out.tab` role):
     batched junction-context matching (see `lr2rmats_tpu.junctions`).
   * transcript toolkit (replaces the lr2rmats C core): filter / update-gtf /
@@ -13,7 +13,7 @@ A from-scratch reimplementation of the capabilities of Xinglab/lr2rmats
     exon-interval tensors (see `lr2rmats_tpu.transcript`).
   * pipeline orchestration (replaces Snakemake): a stage graph with
     file-artifact checkpointing (see `lr2rmats_tpu.pipeline`).
-  * multi-chip scaling via jax.sharding meshes (see `lr2rmats_tpu.parallel`).
+  * multi-device scaling via jax.sharding meshes (see `lr2rmats_tpu.parallel`).
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 Replaces the minimap2 role (`minimap2 -ax splice -ub`, reference
 Snakefile:61).  Seeding uses the sorted minimizer index; chaining is the
-splice-aware window DP (align.chain; TPU-batched version in ops.chain_jax);
+splice-aware window DP (align.chain; device-batched version in ops.chain_jax);
 extension merges colinear anchors into exon blocks, places introns with
 motif-scored splice refinement (align.splice), fills intra-exon indel gaps
 with banded DP, and emits SAM records carrying the tags the downstream

@@ -5,7 +5,7 @@ candidate intron and is charged only a logarithmic penalty (up to
 max_intron); query-side gaps are charged linearly.  The DP examines a fixed
 predecessor window over anchors sorted by reference position — the same
 heuristic shape as minimap2's chaining, expressed as vectorizable window ops
-(the JAX/TPU batched version lives in lr2rmats_tpu.ops.chain_jax and must
+(the JAX batched version lives in lr2rmats_tpu.ops.chain_jax and must
 agree with this host implementation; see tests/test_chain.py).
 """
 

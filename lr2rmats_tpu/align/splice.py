@@ -132,7 +132,7 @@ def refine_splice_np(q: np.ndarray, ref: np.ndarray, left_ref: int,
 # boundary (the toy CCS read does), which a pure query-split cannot place on
 # the annotated donor/acceptor.  Here both flanks are aligned with a banded
 # shift DP and joined over all (query split, left shift, right shift)
-# combinations with the motif bonus — the host reference of the Pallas
+# combinations with the motif bonus — the host reference of the device
 # splice-DP kernel.
 # ---------------------------------------------------------------------------
 

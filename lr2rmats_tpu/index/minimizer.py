@@ -2,7 +2,7 @@
 
 Replaces minimap2's seeding stage (`minimap2 -x splice`: k=15, w=5).  All
 extraction is vectorized; the index is a hash-sorted (hash, pos, strand)
-array queried with searchsorted — a TPU/XLA-friendly layout (no pointer
+array queried with searchsorted — an XLA-friendly layout (no pointer
 chasing, no open addressing; reference SURVEY §7 "hard parts" #5).
 
 Positions are stored as global offsets into the concatenated genome buffer;

@@ -3,16 +3,16 @@
 The reference distributes per-sample jobs over a cluster with qsub
 (reference README.md:139-153; per-rule resources config.yaml:37-66) and
 gathers the per-sample novel GTFs through the shared filesystem
-(`cat ... | unique-gtf`, reference Snakefile:172-192).  The TPU-native
-equivalent is a `jax.distributed` process group: each host owns a
+(`cat ... | unique-gtf`, reference Snakefile:172-192).  The equivalent
+here is a `jax.distributed` process group: each process owns a
 round-robin shard of the samples, runs alignment + both update-gtf passes
-on its local accelerator(s), and the final cross-sample gather rides the
-distributed backend (DCN on a real pod slice, Gloo on CPU test clusters)
-as an all-gather of the per-sample candidate payloads — no shared
-filesystem required.
+on its own accelerator, and the final cross-sample gather rides the
+distributed backend (NCCL between GPUs, Gloo on CPU test clusters) as an
+all-gather of the per-sample candidate payloads — no shared filesystem
+required.
 
-Within each host the (dp, tp) ICI mesh of parallel.mesh still applies;
-this module is the layer above it (hosts over DCN, chips over ICI).
+Within each process the (dp, tp) mesh of parallel.mesh still applies over
+its local devices; this module is the layer above it.
 
 Tested with a real 2-process CPU cluster in tests/test_distributed.py:
 the gathered updated.gtf is byte-identical to the single-process run.
@@ -30,22 +30,35 @@ import numpy as np
 _STATE: Dict[str, int] = {"process_id": 0, "num_processes": 1}
 
 
+def _gpu_platform() -> bool:
+    """True when JAX will come up on CUDA devices.  Decided without
+    initializing a backend, which jax.distributed.initialize forbids."""
+    import importlib.util
+    import jax
+    plats = (jax.config.jax_platforms or "").lower()
+    if plats:
+        return plats.split(",")[0] in ("cuda", "gpu")
+    return any(importlib.util.find_spec(m) is not None
+               for m in ("jax_cuda12_plugin", "jax_cuda13_plugin"))
+
+
 def init_multihost(coordinator: str, num_processes: int,
                    process_id: int) -> None:
     """Join the jax.distributed process group (jax.distributed role of the
     reference's qsub cluster submission, README.md:139-153).
 
-    Must be called before any other jax API touches the backend.  On TPU
-    pods the three arguments normally come from the scheduling environment
-    and jax.distributed.initialize() autodetects them; pass them explicitly
-    for CPU/GPU clusters and tests.
+    Must be called before any other jax API touches the backend.  On the
+    GPU each process owns exactly one card, `local_device_ids=[process_id]`
+    (one host, one process per card); without it every process would open
+    every card and the second one would run out of memory.
     """
     import jax
     if num_processes <= 1:
         return
-    jax.distributed.initialize(coordinator_address=coordinator,
-                               num_processes=num_processes,
-                               process_id=process_id)
+    jax.distributed.initialize(
+        coordinator_address=coordinator, num_processes=num_processes,
+        process_id=process_id,
+        local_device_ids=[process_id] if _gpu_platform() else None)
     _STATE["process_id"] = process_id
     _STATE["num_processes"] = num_processes
 
@@ -118,7 +131,8 @@ def gather_indexed_payloads(
     Each process contributes the payloads for the samples it owns; the
     result maps every global sample index to its payload, on every
     process.  This is the reference's `expand()` + `cat` gather
-    (Snakefile:172-192) with DCN instead of a shared filesystem.
+    (Snakefile:172-192) over the distributed backend instead of a shared
+    filesystem.
     """
     frames = b"".join(
         struct.pack("<qq", gi, len(b)) + b for gi, b in payloads)

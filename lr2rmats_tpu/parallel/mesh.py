@@ -1,12 +1,13 @@
-"""Multi-chip scaling: device meshes, sharded alignment step, merge collectives.
+"""Multi-device scaling: device meshes, sharded alignment step, merge collectives.
 
 The reference scales by shared-nothing per-sample jobs over a cluster
-(reference Snakefile wildcards + qsub, SURVEY §2.3).  The TPU-native design
+(reference Snakefile wildcards + qsub, SURVEY §2.3).  The design here
 replaces that with first-class sharding over a jax mesh:
 
   dp axis — long-read batches are data-parallel
   tp axis — the minimizer hash table is sharded; each shard contributes its
-            local seed hits which are all-gathered over ICI before chaining
+            local seed hits which are all-gathered over the device
+            interconnect before chaining
 
 The sharded step below is the full device-side alignment step (seed lookup
 -> anchor all-gather -> chain DP -> per-read best score), expressed with
@@ -89,7 +90,7 @@ def _chain_score_local(qpos, rpos, n_anchor, *, window: int, k: int,
 
 def sharded_align_step(mesh: Mesh, chain_params: Optional[ChainParams] = None,
                        hits_per_seed: int = 4):
-    """Build the jitted multi-chip alignment step.
+    """Build the jitted multi-device alignment step.
 
     Inputs (global shapes):
       idx_hash [M]        uint32 sorted minimizer hashes — sharded over tp
@@ -105,7 +106,7 @@ def sharded_align_step(mesh: Mesh, chain_params: Optional[ChainParams] = None,
     2**30, so positions must stay below 2**30 (~1 Gbp buffer) — callers
     are guarded.  The PRODUCTION pipeline never hits this: its device
     chain runs on cluster-relative int32 positions (align/batch.py,
-    CLAUDE.md invariant); this step is the mesh/ICI data-plane
+    CLAUDE.md invariant); this step is the mesh collective data-plane
     validation kernel (dryrun_multichip, tests/test_parallel.py).
     """
     p = chain_params or ChainParams()
@@ -127,7 +128,7 @@ def sharded_align_step(mesh: Mesh, chain_params: Optional[ChainParams] = None,
         gpos = gpos.reshape(Bl, Q * H)
         qpos = qpos.reshape(Bl, Q * H)
         ok = ok.reshape(Bl, Q * H)
-        # all-gather anchors over the index-shard axis (ICI collective)
+        # all-gather anchors over the index-shard axis (device collective)
         gpos = jax.lax.all_gather(gpos, "tp", axis=1, tiled=True)
         qpos = jax.lax.all_gather(qpos, "tp", axis=1, tiled=True)
         ok = jax.lax.all_gather(ok, "tp", axis=1, tiled=True)
@@ -174,7 +175,7 @@ def mesh_exchange_candidates(T, mesh: Optional[Mesh] = None):
     in-place.
 
     Rows are padded to the dp size, placed dp-sharded, all-gathered over
-    ICI, and written back in (shard, ordinal) order — byte-identical to the
+    the device interconnect, and written back in (shard, ordinal) order — byte-identical to the
     host concatenation, which the mesh pipeline test asserts.  On one
     device this is a no-op.  SINGLE-PROCESS scope: T holds the full
     candidate set and this collective validates the on-mesh merge data

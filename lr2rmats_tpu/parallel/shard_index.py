@@ -2,7 +2,7 @@
 
 The reference handles genome scale by replicating the minimap2 index per
 cluster job (reference Snakefile:24-38, 61).  At full-human scale the
-table is ~18 GB (GRCH38_DRYRUN.json), so the TPU-native design also
+table is ~18 GB (GRCH38_DRYRUN.json), so the design here also
 offers the sharded arm: the hash-sorted table is partitioned by
 hash % n (minimizer hashes are window minima and skew low, so contiguous
 ranges would not balance; the mod of a murmur-mixed hash does), one
@@ -22,7 +22,7 @@ Two modes:
     measured by scripts/dryrun_grch38.py --shards).  `lookup` is then a
     COLLECTIVE: every host contributes its query hashes, answers the
     queries that land in its range, and the hits ride an all-gather back
-    (parallel.distributed.gather_blobs over DCN/Gloo); `self.pos/strand`
+    (parallel.distributed.gather_blobs over the distributed backend); `self.pos/strand`
     hold the returned per-call hit arrays.  All hosts must call
     lookup_collective in lockstep (same number of batches; pad with empty
     queries) and from ONE thread (drive batches with dispatch_batch /

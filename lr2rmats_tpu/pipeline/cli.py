@@ -62,7 +62,7 @@ def _add_update_opts(sp, unique: bool = False):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog=PROG, description=f"{PROG} {__version__} — TPU-native long-read "
+        prog=PROG, description=f"{PROG} {__version__} — accelerator-native long-read "
         "transcript discovery (lr2rmats capability set)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -156,7 +156,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="minimizer-table hash-range shards (>1 routes seed "
                          "lookups per shard; byte-identical output)")
     sp.add_argument("--cpu", action="store_true",
-                    help="force the CPU host path (no accelerator)")
+                    help="run the device kernels on JAX's CPU backend")
     sp.add_argument("--coordinator", default=None,
                     help="jax.distributed coordinator host:port (multi-host "
                          "run; the reference's qsub cluster submission, "
@@ -196,6 +196,33 @@ def _ugp_from_args(args, unique: bool = False) -> UpdateGtfParams:
         if getattr(args, "ref_compat", False):
             ugp.ref_acceptor_compat = True
     return ugp
+
+
+def run_config(args):
+    """PipelineConfig for parsed `run` arguments."""
+    from .config import PipelineConfig, SampleReads
+    if args.config:
+        cfg = PipelineConfig.from_yaml(args.config)
+    elif args.long_read_list:
+        cfg = PipelineConfig.from_read_lists(
+            args.genome, args.gtf, args.long_read_list,
+            args.short_read_list)
+    else:
+        cfg = PipelineConfig(genome_fasta=args.genome, gtf=args.gtf)
+        cfg.samples["samp1"] = SampleReads(
+            args.long_read, args.short_read_1, args.short_read_2)
+    cfg.rm_gtf = args.rm_gtf or cfg.rm_gtf
+    # explicit CLI flags win; otherwise the config.yaml (or the
+    # PipelineConfig reference defaults) stand
+    for knob in ("aln_cov", "iden_frac", "sec_rat", "sup_cnt",
+                 "split_trans", "full_level"):
+        v = getattr(args, knob)
+        if v is not None:
+            setattr(cfg, knob, v)
+    cfg.out_dir = args.out_dir
+    cfg.jobs = args.jobs
+    cfg.index_shards = args.index_shards
+    return cfg
 
 
 def main(argv=None) -> int:
@@ -294,32 +321,11 @@ def _main(argv=None) -> int:
                      args.intron_len, require_proper_pair=args.prop_pair)
         return 0
     if args.cmd == "run":
-        from .config import PipelineConfig, SampleReads
         from .stages import run_pipeline
-        if args.config:
-            cfg = PipelineConfig.from_yaml(args.config)
-        elif args.long_read_list:
-            cfg = PipelineConfig.from_read_lists(
-                args.genome, args.gtf, args.long_read_list,
-                args.short_read_list)
-        else:
-            cfg = PipelineConfig(genome_fasta=args.genome, gtf=args.gtf)
-            cfg.samples["samp1"] = SampleReads(
-                args.long_read, args.short_read_1, args.short_read_2)
-        cfg.rm_gtf = args.rm_gtf or cfg.rm_gtf
-        # explicit CLI flags win; otherwise the config.yaml (or the
-        # PipelineConfig reference defaults) stand
-        for knob in ("aln_cov", "iden_frac", "sec_rat", "sup_cnt",
-                     "split_trans", "full_level"):
-            v = getattr(args, knob)
-            if v is not None:
-                setattr(cfg, knob, v)
-        cfg.out_dir = args.out_dir
-        cfg.jobs = args.jobs
-        cfg.index_shards = args.index_shards
+        cfg = run_config(args)
         if args.cpu:
-            # keep the accelerated (XLA) chain kernels but on the CPU
-            # backend — the pure-python "host" fallback is for tests only
+            # the device kernels on JAX's CPU backend
+            # (run_pipeline(use_device=False) is the host path)
             import jax
             jax.config.update("jax_platforms", "cpu")
         if args.num_processes and args.num_processes > 1:

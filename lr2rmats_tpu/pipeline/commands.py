@@ -279,7 +279,7 @@ def cmd_unique_gtf(in_path: str, ugp: UpdateGtfParams,
     """`unique-gtf` (reference unique_gtf.c:86-158).
 
     With device_gather, the candidate exon tensors are routed through the
-    dp all-gather collective before the merge (the multi-chip data plane of
+    dp all-gather collective before the merge (the multi-device data plane of
     the cross-sample gather; parallel.mesh.mesh_exchange_candidates) —
     output is byte-identical to the host concatenation."""
     cname, bam_T = _load_input_trans(

@@ -9,6 +9,7 @@ run_snakemake.py:20-45.
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -48,7 +49,13 @@ class PipelineConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "PipelineConfig":
-        import yaml
+        try:
+            import yaml
+        except ImportError as e:
+            raise ValueError(
+                "--config needs PyYAML, which is not installed; pass the "
+                "inputs as --genome/--gtf/--long-read/--short-read-1/2 or "
+                "as --long-read-list/--short-read-list files instead") from e
         with open(path) as f:
             raw = yaml.safe_load(f)
         cfg = cls()
@@ -78,6 +85,41 @@ class PipelineConfig:
                 second = None
             cfg.samples[name] = SampleReads(lr_path, sr.get("first"), second)
         return cfg
+
+    def to_yaml(self) -> str:
+        """The resolved configuration in the reference's config.yaml schema
+        (what run_snakemake.py:132-135 writes into the out dir), readable
+        by `from_yaml`.  Standard library only: every key and scalar is a
+        JSON literal, which YAML reads back as the same value."""
+        doc = {
+            "genome": {"fasta": self.genome_fasta, "gtf": self.gtf},
+            "sample": {
+                "long_read": {s: r.long_read
+                              for s, r in self.samples.items()},
+                "short_read": {s: {"first": r.short_first,
+                                   "second": r.short_second or []}
+                               for s, r in self.samples.items()},
+            },
+            "output": {"updated_gtf": self.updated_gtf},
+            "lr2rmats": {"rm_gtf": self.rm_gtf, "aln_cov": self.aln_cov,
+                         "iden_frac": self.iden_frac,
+                         "sec_rat": self.sec_rat, "sup_cnt": self.sup_cnt,
+                         "split_trans": "-s" if self.split_trans else "",
+                         "full_level": self.full_level},
+        }
+        lines: List[str] = []
+
+        def emit(d: dict, indent: str) -> None:
+            for k, v in d.items():
+                key = json.dumps(str(k))
+                if isinstance(v, dict) and v:
+                    lines.append(f"{indent}{key}:")
+                    emit(v, indent + "  ")
+                else:
+                    lines.append(f"{indent}{key}: {json.dumps(v)}")
+
+        emit(doc, "")
+        return "\n".join(lines) + "\n"
 
     @classmethod
     def from_read_lists(cls, genome: str, gtf: str, long_list: str,

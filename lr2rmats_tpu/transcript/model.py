@@ -3,7 +3,7 @@
 The reference keeps transcripts as linked C structs (trans_t/read_trans_t,
 reference gtf.h:39-58).  Here the whole transcript set is a struct-of-arrays
 with padded exon tensors so classification/merge can run as vectorized
-interval ops (and batch onto the TPU):
+interval ops (and batch onto the accelerator):
 
     exon_start/exon_end : int32 [n, E]   (1-based inclusive, padded with 0)
     exon_n              : int32 [n]

@@ -75,34 +75,6 @@ def test_batch_toy_read(ref_data):
     assert list(s[1:]) == [1139435, 1139779, 1141765]
 
 
-def test_pallas_backend_matches(sim):
-    """backend='pallas' must reproduce the default engine's records
-    (interpreter-mode Pallas on CPU)."""
-    import lr2rmats_tpu.ops.chain_pallas as cpal
-    if not cpal.HAVE_PALLAS:
-        pytest.skip("no pallas")
-    # force interpreter mode on CPU
-    orig = cpal.chain_anchors_batch_pallas
-    cpal_interp = lambda qp, gp, nn, p: orig(qp, gp, nn, p, interpret=True)
-    cpal.chain_anchors_batch_pallas, saved = cpal_interp, orig
-    try:
-        g, exon_sets = sim
-        reads = [splice_read(g, es, "+", err=0.01, seed=5) for es in exon_sets]
-        names = [f"p{i}" for i in range(len(reads))]
-        a = BatchAligner(g, backend="jax")
-        b = BatchAligner(g, index=a.index, backend="pallas")
-        ra = {r.qname: r for r in a.align_batch(names, reads)
-              if not (r.flag & 0x100)}
-        rb = {r.qname: r for r in b.align_batch(names, reads)
-              if not (r.flag & 0x100)}
-        assert set(ra) == set(rb)
-        for k in ra:
-            np.testing.assert_array_equal(ra[k].cigar, rb[k].cigar)
-            assert ra[k].pos == rb[k].pos
-    finally:
-        cpal.chain_anchors_batch_pallas = saved
-
-
 def test_chunk_scale_and_radix_guard(sim):
     """The auto-batch chunk multiplier doubles device chunk heights
     (128-lane rounded), and batches up to 4096 reads keep the u64 radix

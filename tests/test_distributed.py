@@ -153,3 +153,20 @@ def test_gather_single_process_identity():
     assert gather_blobs(b"abc") == [b"abc"]
     got = gather_indexed_payloads([(3, b"x"), (0, b""), (7, b"yy")])
     assert got == {3: b"x", 0: b"", 7: b"yy"}
+
+
+@pytest.mark.parametrize("gpu", [True, False], ids=["gpu", "cpu"])
+def test_init_multihost_pins_one_card_per_process(monkeypatch, gpu):
+    """On the GPU each process of the group owns exactly one card."""
+    import jax
+    from lr2rmats_tpu.parallel import distributed as D
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setattr(D, "_gpu_platform", lambda: gpu)
+    monkeypatch.setitem(D._STATE, "process_id", 0)
+    monkeypatch.setitem(D._STATE, "num_processes", 1)
+    D.init_multihost("localhost:1234", 4, 2)
+    assert seen["local_device_ids"] == ([2] if gpu else None)
+    assert seen["process_id"] == 2 and seen["num_processes"] == 4
+    assert D.multihost_info() == (2, 4)

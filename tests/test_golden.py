@@ -42,7 +42,7 @@ def toy_run(tmp_path_factory):
         # keep the cached index out of the read-only reference tree
         index_cache=os.path.join(out, "idx.tmmi.npz"),
     )
-    run_pipeline(cfg, use_tpu=False)
+    run_pipeline(cfg, use_device=False)
     return out
 
 

@@ -99,7 +99,7 @@ def _run_mesh(sim, out_dir):
         samples={"s1": SampleReads(long_read=sim["long"],
                                    short_first=sim["short"])},
         index_cache=os.path.join(out_dir, "idx.npz"))
-    run_pipeline(cfg)   # use_tpu default => backend jax over local devices
+    run_pipeline(cfg)   # use_device default => backend jax over local devices
     return os.path.join(out_dir, "output", "updated.gtf")
 
 

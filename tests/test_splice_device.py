@@ -10,8 +10,7 @@ import numpy as np
 import pytest
 
 from lr2rmats_tpu.align.splice import refine_splice_indel_np
-from lr2rmats_tpu.ops.splice_device import (junction_batch_pallas,
-                                            junction_batch_scan,
+from lr2rmats_tpu.ops.splice_device import (junction_batch_scan,
                                             prepare_junction_batch,
                                             recover_ops)
 
@@ -67,16 +66,6 @@ def test_recovered_ops_match_host():
         assert h[2] == d[2]          # right ops
         assert h[3] == d[3]          # vote
         assert abs(h[4] - d[4]) < 1e-6
-
-
-def test_pallas_matches_scan_interpret():
-    ref, gaps = _random_gaps(11, 60)
-    batch = prepare_junction_batch(ref, gaps)
-    s = junction_batch_scan(batch)
-    p = junction_batch_pallas(batch, interpret=True)
-    assert np.allclose(s[0], p[0], atol=1e-6)
-    for k in (1, 2, 3, 4, 5):
-        assert np.array_equal(s[k], p[k])
 
 
 def test_empty_gap_query():
